@@ -1,8 +1,10 @@
 """ctypes bridge to the native BVH builder (ptx/accel/cpp).
 
-Builds the shared library on first use (``make`` in the cpp dir); every
-result is interchangeable with the numpy builder in ``ptx.accel.bvh``, which
-remains the oracle and the fallback when no toolchain is available.
+Builds the shared library from the committed source on first use (``make``
+in the cpp dir), and again whenever the library is missing or older than
+its source, so a library built elsewhere is never loaded stale; every result
+is interchangeable with the numpy builder in ``ptx.accel.bvh``, which remains
+the oracle and the fallback when no toolchain is available.
 """
 
 from __future__ import annotations
@@ -17,9 +19,18 @@ import numpy as np
 
 _CPP_DIR = os.path.join(os.path.dirname(__file__), "cpp")
 _LIB_PATH = os.path.join(_CPP_DIR, "libptxbvh.so")
+_SOURCES = [os.path.join(_CPP_DIR, f) for f in ("bvh_builder.cpp", "Makefile")]
 _lock = threading.Lock()
 _lib = None
 _lib_failed = False
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than any of its sources."""
+    if not os.path.exists(_LIB_PATH):
+        return True
+    built = os.path.getmtime(_LIB_PATH)
+    return any(os.path.getmtime(src) > built for src in _SOURCES)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -28,9 +39,9 @@ def _load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            if not os.path.exists(_LIB_PATH):
+            if _stale():
                 subprocess.run(
-                    ["make", "-C", _CPP_DIR],
+                    ["make", "-B", "-C", _CPP_DIR],
                     check=True,
                     capture_output=True,
                     timeout=120,

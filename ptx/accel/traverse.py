@@ -5,7 +5,8 @@ The device-side counterpart of ``mesh::intersect``'s explicit-stack KD walk
 node register and follows hit -> ``node+1`` / miss -> ``bvh_miss[node]``
 links, so the whole wavefront advances in a single batched ``while_loop``
 (vmap turns the per-ray loop into lock-step masked execution — the lanes
-that finish early idle, the TPU analog of SIMT divergence).
+that finish early idle).  The GPU kernel form of the same walk, one
+block of lanes at a time, is ``ptx.kernels.traverse_pallas``.
 
 Leaves are contiguous triangle ranges of at most ``leaf_size``; the leaf test
 is a fixed-width vectorized Moller-Trumbore block with a count mask — the

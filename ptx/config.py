@@ -95,17 +95,16 @@ class RenderConfig:
     # Ray batching: rays per wavefront launch (static shape). None = whole image.
     rays_per_batch: Optional[int] = None
     # Samples per integrator launch: batching k image samples into one
-    # wavefront launch (k*W*H rays) amortizes sort/plan/dispatch overhead and
-    # fills bigger Pallas grids. None = auto (largest k with the launch under
+    # wavefront launch (k*W*H rays) amortizes sort/dispatch overhead and
+    # fills bigger kernel grids. None = auto (largest k with the launch under
     # MAX_RAYS_PER_LAUNCH); 1 = one launch per sample (round-1 behaviour).
     samples_per_launch: Optional[int] = None
-    # Intersection backend: "auto" | "brute" | "bvh" | "pallas".
+    # Intersection backend: "auto" (chosen from the platform and scene size,
+    # ptx.render.resolve_intersector) | "brute" | "bvh" (XLA walk) |
+    # "pallas" (the GPU kernel walk, ptx.kernels.traverse_pallas).
     intersector: str = "auto"
-    # Shading engine: "auto" (fused Pallas kernels on TPU, XLA elsewhere),
-    # "xla", or "pallas".
-    shader: str = "auto"
     # Per-bounce ray sorting (wavefront coherence/compaction): "auto" (on for
-    # multi-tile Pallas sweeps), "on", or "off".
+    # the kernel walk on non-trivial scenes), "on", or "off".
     sort_rays: str = "auto"
     quirks: Quirks = dataclasses.field(default_factory=Quirks)
 

@@ -1,4 +1,4 @@
-"""Fast differentiable integrator: fused-Pallas forward, shading-only vjp.
+"""Fast differentiable integrator: recorded-trace forward, shading-only vjp.
 
 The default differentiable scan (``make_integrator(differentiable=True)``)
 pays for generality: its primal runs the XLA shading path so reverse-mode
@@ -8,17 +8,15 @@ inverse-rendering workload optimizes materials / lights / textures
 (``shading_worker.cpp``'s inputs, not its geometry), and for those
 parameters the trace results are constants.  This module exploits that:
 
-* **forward** — the production fused-Pallas bounce step
-  (``ptx.kernels.shade_pallas.make_pallas_step``) with ``record=True``,
-  saving each bounce's trace results ``(h, d_sun, sun_exists,
-  shadow_hit)`` (~19 f32/ray/bounce);
+* **forward** — the production bounce step (trace, then shade), saving each
+  bounce's trace results ``(h, d_sun, sun_exists, shadow_hit)``
+  (~19 f32/ray/bounce);
 * **backward** — a ``jax.vjp`` of the *shading-only* scan
-  (``wavefront.make_shade_fn``) evaluated at the recorded hits: pure VPU
-  algebra, no traversal sweeps anywhere in the backward graph.
+  (``wavefront.make_shade_fn``) evaluated at the recorded hits: pure
+  elementwise algebra, no traversal anywhere in the backward graph.
 
-The two schedules produce identical images (the fused kernels are
-bit-parity-tested against the XLA shading path), so the custom_vjp primal
-and the linearization point agree.
+The primal and the replay run the same shading function, so the custom_vjp
+primal and the linearization point agree.
 
 Gradients w.r.t. geometry (``tri_*``/vertex attributes) are NOT produced
 by this path — the recorded hits detach them (zeros).  ``ptx.diff.inverse``
@@ -60,19 +58,11 @@ def make_fast_diff_integrator(
 ):
     """``(fs, pixel_ids, sample_ids) -> (radiance, alpha)`` with a
     custom_vjp: production-speed forward, shading-only backward."""
-    from ptx.kernels.shade_pallas import LANES, make_pallas_step
-    from ptx.render import resolve_shader
-
     q = cfg.quirks
     extra = cfg.opacity_extra_iters if static.has_translucent else 0
     max_iters = cfg.bounces + extra
     shade = make_shade_fn(static, cfg)
     trace = make_trace_fn(static, cfg, closest, any_hit, do_compact=False)
-    pallas_step = (
-        make_pallas_step(static, cfg, closest, any_hit, record=True)
-        if resolve_shader(cfg) == "pallas"
-        else None
-    )
 
     def init_state(fs, pixel_ids, sample_ids):
         orig, dirn = pcamera.generate_rays(
@@ -92,12 +82,10 @@ def make_fast_diff_integrator(
     def _primal(fs, pixel_ids, sample_ids):
         r = pixel_ids.shape[0]
         state = init_state(fs, pixel_ids, sample_ids)
-        if pallas_step is not None and r % LANES == 0:
-            step_rec = pallas_step
-        else:
-            def step_rec(fs, it, s):
-                tr = trace(fs, it, s)
-                return shade(fs, it, s, *tr), tr
+
+        def step_rec(fs, it, s):
+            tr = trace(fs, it, s)
+            return shade(fs, it, s, *tr), tr
 
         # Record buffers [max_iters, ...]; iterations never run stay zero —
         # shade is the identity on dead lanes for any hit payload, so the

@@ -18,6 +18,7 @@ free through the shard_map collectives.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Dict, Optional, Sequence
 
 import jax
@@ -57,15 +58,14 @@ _MAT_PACKED_COLS = {
 
 
 def inject_params(
-    fs: FlatScene, params: Dict[str, jnp.ndarray], keep_tiles: bool = False
+    fs: FlatScene, params: Dict[str, jnp.ndarray],
+    static: Optional[SceneStatic] = None,
 ) -> FlatScene:
     """Overlay an optimization-parameter dict onto a FlatScene.
 
-    ``keep_tiles=True`` asserts the caller has already refreshed
-    ``fs.ptiles``/``fs.pboxes`` for these geometry params (the hoisted
-    once-per-loss repack in :func:`make_batch_value_and_grad_fn`), so the
-    prepack is NOT dropped — without it, dropping forces pack_tris to
-    re-run inside every sweep (16x per 8-iteration chunk)."""
+    Geometry params also refit an attached BVH (``ptx.accel.bvh.refit_bvh``)
+    so the walk keeps finding triangles that moved out of their build-time
+    boxes; that needs ``static`` to tell an attached tree from the dummy."""
     fs = fs._replace(**params)
     geom = [k for k in params if k in _GEOM_ATTR_COLS]
     if geom and fs.tri_attrs.shape[0] == fs.tri_a.shape[0]:
@@ -74,21 +74,17 @@ def inject_params(
             lo, hi = _GEOM_ATTR_COLS[k]
             at = at.at[:, lo:hi].set(params[k])
         fs = fs._replace(tri_attrs=at)
-    if geom and fs.ptiles.shape[0] > 0 and not keep_tiles:
-        # Prepacked traversal tiles (attach_tiles) bake vertex data; leaving
-        # them would make the Pallas sweep intersect the *old* geometry
-        # (ADVICE r4 medium).  Dropping them forces the in-call pack_tris
-        # repack from the now-current tri_* arrays, exactly as
-        # shard_scene.build_shard_scene does after re-stacking.
-        # LIMITATION: BVH *nodes* are not rebuilt here — geometry params
-        # moving triangles outside their build-time leaf AABBs make the
-        # 'bvh' intersector miss them, so geometry optimization must use the
-        # 'pallas' or 'brute' backend (the tile gate recomputes its boxes
-        # from the repacked tiles; only gate *quality* degrades with drift).
-        fs = fs._replace(
-            ptiles=jnp.zeros((0, 16, 1), jnp.float32),
-            pboxes=jnp.zeros((0, 8), jnp.float32),
-        )
+    if geom and (static is None or static.n_bvh_nodes > 0):
+        if static is None or static.shard_local:
+            raise ValueError(
+                "geometry params need the scene's SceneStatic (and a "
+                "single-device tree) to refit the BVH"
+            )
+        from ptx.accel.bvh import refit_bvh
+
+        # The boxes only steer the walk's selection: no gradient through them.
+        boxes = refit_bvh(jax.tree.map(jax.lax.stop_gradient, fs))
+        fs = fs._replace(bvh_min=boxes.bvh_min, bvh_max=boxes.bvh_max)
     mats = [k for k in params if k in _MAT_PACKED_COLS]
     if mats and fs.mat_packed.shape[0] == fs.mat_albedo.shape[0]:
         row = fs.mat_packed
@@ -107,27 +103,15 @@ def extract_params(fs: FlatScene, fields: Sequence[str]) -> Dict[str, jnp.ndarra
 def _resolve_diff_integrator(static, cfg, closest, any_hit, param_fields,
                              stages=None):
     """Material/light/texture parameter sets take the fast custom_vjp path
-    (fused-Pallas forward, shading-only backward — ``ptx.diff.fast``);
+    (recorded-trace forward, shading-only backward — ``ptx.diff.fast``);
     anything touching geometry/camera keeps the general differentiable scan
     whose backward flows through the Möller-Trumbore vjp."""
     from ptx.diff.fast import FAST_SAFE_FIELDS, make_fast_diff_integrator
 
     if set(param_fields) <= FAST_SAFE_FIELDS:
         return make_fast_diff_integrator(static, cfg, closest, any_hit)
-    if set(param_fields) & set(_GEOM_ATTR_COLS):
-        from ptx.render import resolve_intersector
-
-        if resolve_intersector(static, cfg) == "pallas":
-            # Narrow-cotangent AD routing for vertex gradients: the [T,40]
-            # tri_attrs row scatter the backward would otherwise emit is
-            # ~3.9x the cost of three [T,3] ones (closest_pallas docstring).
-            from ptx.kernels.intersect_pallas import make_backend
-
-            closest, any_hit = make_backend(static, split_geom_grad=True)
     # remat_shade=False: chunked-vjp callers already bound residual memory,
-    # so storing the shade intermediates beats re-running the shade forward
-    # in backward (jack 128x128x4spp vertex grads: 91.6k -> 106.1k
-    # grad-paths/s measured, tools/bwd_experiments.py).
+    # so the shade intermediates are saved instead of re-run in backward.
     return make_integrator(static, cfg, closest, any_hit, differentiable=True,
                            remat_shade=False, stages=stages)
 
@@ -159,7 +143,7 @@ def make_loss_fn(
         use :func:`make_batch_loss_fn` with the same sample set for exact
         recovery.
         """
-        fs = inject_params(fs, params)
+        fs = inject_params(fs, params, static)
         pixel_ids = jnp.arange(n_pixels, dtype=jnp.int32)
         sample_ids = jnp.full((n_pixels,), sample_id, jnp.int32)
         radiance, _ = integrator(fs, pixel_ids, sample_ids)
@@ -185,10 +169,8 @@ def make_batch_loss_fn(
 
     Samples are fused into wide wavefront launches (k samples x P pixels
     rays per integrator call, k auto-sized like the forward path's
-    ``samples_per_launch``) instead of a sequential per-sample scan — on
-    TPU the backward pass is launch-bound at small frames, so this is the
-    main grad-throughput lever (round-1 backward ran 4x off forward on
-    16k-ray launches)."""
+    ``samples_per_launch``) instead of a sequential per-sample scan, so a
+    small frame still fills a wide launch."""
     from ptx.render import MAX_RAYS_PER_LAUNCH, get_backend
 
     if closest is None or any_hit is None:
@@ -205,7 +187,7 @@ def make_batch_loss_fn(
     n_groups = n_samples // k
 
     def loss(params, fs: FlatScene):
-        fs = inject_params(fs, params)
+        fs = inject_params(fs, params, static)
         pixel_ids = jnp.tile(jnp.arange(n_pixels, dtype=jnp.int32), k)
 
         def one_group(g):
@@ -233,7 +215,7 @@ def make_batch_loss_fn(
 
 def _largest_divisor_leq(n: int, cap: int, prefer: int = 128) -> int:
     """Largest divisor of ``n`` that is <= ``cap``, preferring multiples of
-    ``prefer`` (fused-Pallas-shader lane eligibility) — the same policy as
+    ``prefer`` (whole kernel blocks) — the same policy as
     ``ptx.render.resolve_rays_per_batch``."""
     cap = max(1, min(cap, n))
     for m in range(cap // prefer, 0, -1):
@@ -261,8 +243,8 @@ def make_batch_value_and_grad_fn(
 
     Why not ``jax.value_and_grad(make_batch_loss_fn(...))``: reverse-mode
     through the general differentiable scan saves per-bounce residuals for
-    the WHOLE wavefront — at jack 128x128x4spp that is a measured 18.3 GB
-    allocation, past the 16 GB chip (VERDICT r4 weak #1).  Chunking the
+    the WHOLE wavefront, which grows past device memory at full resolution
+    (VERDICT r4 weak #1).  Chunking the
     *loss* instead bounds residual memory to one chunk: the scan carry is
     just (loss, grads), per-chunk residuals die at the end of each scan
     step, and the chunk gradients sum exactly (MSE is additive over
@@ -282,8 +264,7 @@ def make_batch_value_and_grad_fn(
     # all n_samples of its pixels needs no sample-group loop at all, so the
     # backward touches each chunk exactly once with no rematerialisation.
     # (The other order — whole frame + checkpointed groups — re-runs every
-    # group's forward during backward: measured 60.4k vs 78.7k grad-paths/s
-    # on jack 128x128x4spp.)
+    # group's forward during backward.)
     k = max(1, min(n_samples, cap))
     while n_samples % k:
         k -= 1
@@ -293,24 +274,16 @@ def make_batch_value_and_grad_fn(
 
     # Staged-width scan (wavefront.make_integrator stages=...): AD-safe
     # survivor compaction exists and is bit-exact (tests/test_diff.py::
-    # test_staged_width_scan_exact), but activating it here is a DOCUMENTED
-    # NEGATIVE RESULT on the 16 GB chip: lax.cond's vjp allocates residual
-    # buffers for both branches, and every checkpointing arrangement tried
-    # still compiled to an over-HBM allocation on jack 128x128x4spp
-    # (plain fallback 51.1 GB; checkpointed fallback 20.9 GB; whole-stage
-    # checkpoint 44.7 GB; checkpointed fallback at 16k-ray chunks
-    # 18.4 GB vs 15.75 GB available).  The plain full-width scan fits and
-    # measures 110k grad-paths/s, so stages stay off until XLA can DCE the
-    # untaken branch's residuals.
+    # test_staged_width_scan_exact) but stays off: lax.cond's vjp allocates
+    # residual buffers for both branches, so it needs more device memory
+    # than the plain full-width scan.  Not yet measured on the H100.
     integrator = _resolve_diff_integrator(
         static, cfg, closest, any_hit, param_fields
     )
 
-    geom_params = bool(set(param_fields) & set(_GEOM_ATTR_COLS))
-
     def chunk_loss(params, fs: FlatScene, c):
         """Sum of squared errors over pixel chunk ``c`` (scaled later)."""
-        fsx = inject_params(fs, params, keep_tiles=True)
+        fsx = inject_params(fs, params, static)
         pix = c * cp + jnp.arange(cp, dtype=jnp.int32)
         pixel_ids = jnp.tile(pix, k)
 
@@ -338,20 +311,6 @@ def make_batch_value_and_grad_fn(
     denom = float(n_pixels * 3)  # jnp.mean over the [P, 3] image
 
     def value_and_grad(params, fs: FlatScene):
-        if geom_params and fs.ptiles.shape[0] > 0:
-            # Hoisted traversal-tile repack: the prepacked tiles bake vertex
-            # data, so geometry params must refresh them — but ONCE per loss
-            # evaluation, not once per sweep (inject_params' default drop
-            # forces an in-call pack_tris in all 16 sweeps of an 8-iteration
-            # chunk).  Tiles/boxes only steer winner SELECTION (the kernel
-            # is stop-gradient anyway; gradients flow through the exact
-            # epilogue recompute), so packing from stop-gradient'd params
-            # is exact.
-            from ptx.kernels.intersect_pallas import pack_tris
-
-            sgp = jax.tree.map(jax.lax.stop_gradient, params)
-            tiles, boxes = pack_tris(inject_params(fs, sgp, keep_tiles=True))
-            fs = fs._replace(ptiles=tiles, pboxes=boxes)
         if n_chunks == 1:
             tot, grads = jax.value_and_grad(chunk_loss)(
                 params, fs, jnp.int32(0)
@@ -486,9 +445,12 @@ def run_inverse_demo(scene_path: str, cfg: RenderConfig, steps=100, lr=0.05,
     clip = {f: _DEMO_INITS[f][1] for f in param_fields
             if _DEMO_INITS[f][1] is not None}
 
+    stamps = []
+
     def progress(step, val):
+        stamps.append(time.perf_counter())
         if step % 10 == 0:
-            print(f"step {step:4d} loss {val:.6f}")
+            print(f"step {step:4d} loss {val:.8g}")
 
     params, history = optimize(
         fs, static, cfg, target, init, steps=steps, lr=lr,
@@ -498,5 +460,11 @@ def run_inverse_demo(scene_path: str, cfg: RenderConfig, steps=100, lr=0.05,
         f"{f} MAE {float(jnp.abs(params[f] - true[f]).mean()):.4f}"
         for f in param_fields
     )
-    print(f"final loss {history[-1]:.6f}  {report}")
+    print(f"final loss {history[-1]:.8g}  {report}")
+    if len(stamps) > 1:
+        # Steps after the first, which compiles; each step's loss is fetched,
+        # so the stamps follow the device.
+        paths = (len(stamps) - 1) * n_pixels * max(cfg.samples, 1)
+        print(f"grad-paths/s {paths / (stamps[-1] - stamps[0]):.1f} "
+              f"(steps 1-{len(stamps) - 1}, compile excluded)")
     return params, history

@@ -1,10 +1,10 @@
 """Batched ray/triangle/AABB primitives.
 
-TPU-native counterpart of the reference's ``geometry/`` module.  The
+Data-parallel counterpart of the reference's ``geometry/`` module.  The
 reference solves ray-triangle intersection with a Cramer's-rule 3x3 solve
 (``geometry/triangle.cpp:120-190``); we use the algebraically identical
-Moller-Trumbore form, which has fewer subterms and vectorizes onto the VPU as
-a handful of fused multiply-adds per (ray, triangle) pair.  The epsilon-biased
+Moller-Trumbore form, which has fewer subterms and vectorizes as a handful
+of fused multiply-adds per (ray, triangle) pair.  The epsilon-biased
 "in favour of a successful hit" barycentric tests and the hit-iff-``t >= 0``
 convention are preserved exactly.
 
@@ -18,14 +18,15 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ptx import math as pmath
 
 # Sentinel "no hit" distance. The reference encodes misses as distance = -1
 # and min-reduces with a has_hit() guard; an infinite miss distance lets us
-# use a plain jnp.min / argmin instead, which maps directly onto VPU reduces
-# (and onto cross-chip min-reduces in the scene-sharded mode).
+# use a plain jnp.min / argmin instead (and cross-device min-reduces in the
+# scene-sharded mode).
 INF = jnp.float32(3.0e38)
 
 
@@ -110,8 +111,10 @@ def transform_ray(orig, dirn, basis, origin):
     re-normalize the direction — the reference's ``ray::transform``
     (``geometry/ray.cpp:10-15``) with the always-normalized-direction invariant
     of the ray constructor (``ray.cpp:6-8``)."""
-    new_orig = orig @ basis.T + origin
-    new_dir = pmath.normalize(dirn @ basis.T)
+    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU.
+    hi = jax.lax.Precision.HIGHEST
+    new_orig = jnp.matmul(orig, basis.T, precision=hi) + origin
+    new_dir = pmath.normalize(jnp.matmul(dirn, basis.T, precision=hi))
     return new_orig, new_dir
 
 

@@ -1,6 +1,6 @@
 """The wavefront path-tracing integrator.
 
-This is the TPU re-design of the reference's entire worker runtime: the four
+This is the SPMD re-design of the reference's entire worker runtime: the four
 ray stages flowing through lock-free queues with dedicated thread groups
 (``worker.cpp:46-92``, ``intersection_worker.cpp``, ``shading_worker.cpp``,
 ``accumulation_worker.cpp``) collapse into *one fused jitted loop over the
@@ -11,8 +11,8 @@ ray wavefront as data*:
 
 There are no queues: a "stage transition" is a masked lane update, the
 cross-worker min-distance reduce point (W5, ``intersection_worker.cpp:78-110``)
-is the pluggable ``closest`` callable (locally a tile reduce; in the
-scene-sharded mode a psum-min over ICI), and "accumulation" is a
+is the pluggable ``closest`` callable (locally a brute reduce or BVH walk;
+in the scene-sharded mode a psum-min across devices), and "accumulation" is a
 segment-mean performed by the caller (``ptx.integrator.accumulate``).
 
 Shading follows ``shading_worker.cpp:10-201`` term for term — every quirk
@@ -68,12 +68,9 @@ def compute_hit_attrs(fs: FlatScene, tri, beta, gamma, at=None, geom=None):
     the reference order.
 
     Everything comes from the packed ``tri_attrs`` row when flatten built it
-    (ONE [R, 40] gather, including the vertex data for the position — TPU
-    row gathers cost per *op*, not per byte); values are identical either
-    way.  Pass ``at`` when the caller already gathered the rows, and
-    ``geom=(a, e1, e2)`` to override the vertex columns — the
-    split-geometry-gradient path routes d/d vertices through the narrow
-    [T, 3] leaves instead of the [T, 40] row scatter (closest_pallas)."""
+    (ONE [R, 40] gather, including the vertex data for the position); values
+    are identical either way.  Pass ``at`` when the caller already gathered
+    the rows, and ``geom=(a, e1, e2)`` to override the vertex columns."""
     alpha_w = 1.0 - beta - gamma
     w0, w1, w2 = alpha_w[..., None], beta[..., None], gamma[..., None]
     if at is None and fs.tri_attrs.shape[0] == fs.tri_a.shape[0]:
@@ -127,13 +124,14 @@ def _brdf_and_pdfs(normal, outcoming, incoming, albedo, metallic, roughness):
     return brdf, diffuse_pdf, specular_pdf
 
 
-# Lanes per compaction chunk: one chunk = 64 intersection blocks — small
-# enough that a nearly-dead wavefront costs ~1/8 of a full-width pass, big
-# enough that the Pallas launches stay efficient.
+# Lanes per compaction chunk: small enough that a nearly-dead wavefront
+# costs a fraction of a full-width pass, big enough to fill the device.
+# An untuned starting value, not yet measured on the H100.
 CHUNK = 8192
 # Live-lane count below which the per-iteration re-sort is skipped (the
 # compaction is already certified and the coherence value of sorting a
 # tiny straggler set is less than the full-width argsort it costs).
+# An untuned starting value, not yet measured on the H100.
 SKIP_SORT_MAX = 4096
 
 
@@ -143,7 +141,7 @@ def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
 
     Each iteration sorts the wavefront dead-last (fused with the morton
     coherence key, ``ptx.kernels.sorting``) and pushes only the first
-    ceil(live / CHUNK) chunks through the step — the TPU-shaped version of
+    ceil(live / CHUNK) chunks through the step — the SPMD-shaped version of
     the reference's queues simply not containing dead rays.  Exact: the
     counter-based RNG is keyed by (pixel, sample, bounce), so lane
     permutation cannot change any sample, and untouched chunks hold only
@@ -153,7 +151,7 @@ def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
     scene-sharded closest/any reduces), every chip on that axis must run the
     same number of chunk steps — pass ``lambda n: lax.pmax(n, axis)`` so
     trip counts agree; chips whose extra chunks are all-dead do cheap no-op
-    sweeps (parked lanes fail every gate).
+    sweeps (parked lanes miss the root box).
     """
     R = state.orig.shape[0]
     chunk = CHUNK if (R % CHUNK == 0) else R
@@ -184,16 +182,12 @@ def _chunked_forward(step_fn, fs, state: RayState, max_iters: int,
 
         # Straggler fast path: once every live lane fits in chunk 0 (post-
         # sort), lanes only die IN PLACE there — re-sorting each iteration
-        # is pure overhead (the full-width argsort + 9-field permutation
-        # gathers measured ~23 ms of a 79 ms jack launch across the
-        # opacity-straggler iterations).  ``in_c0`` certifies the
-        # containment, so skipping is exact; it derives from the synced
-        # live count, so trip counts stay uniform under SPMD.  The skip
-        # only engages below SKIP_SORT_MAX live lanes: the sort ALSO buys
-        # morton coherence for the tile gate, worth more than the sort
-        # while the live set is big (single-chunk launches certify
-        # trivially — 640x480's 28800-ray chunks measured 306k -> 234k
-        # paths/s when they stopped re-sorting entirely).
+        # is overhead (a full-width argsort + 9-field permutation gathers).
+        # ``in_c0`` certifies the containment, so skipping is exact; it
+        # derives from the synced live count, so trip counts stay uniform
+        # under SPMD.  The skip only engages below SKIP_SORT_MAX live lanes:
+        # the sort ALSO buys morton coherence for the intersector, which can
+        # be worth more than the sort while the live set is big.
         s, slot = jax.lax.cond(in_c0, lambda a: a, do_sort, (s, slot))
         in_c0 = in_c0 | (live <= min(chunk, SKIP_SORT_MAX))
         n_live = jnp.minimum((live + chunk - 1) // chunk, n_chunks)
@@ -249,7 +243,7 @@ def make_trace_fn(
         shadow query (the reference's INTERSECT and DIRECT_LIGHTING stages).
         Split from :func:`shade` so the differentiable scan can save these
         results as residuals — ``jax.checkpoint`` around the shading then
-        remats only cheap VPU algebra, never the traversal sweeps (which
+        remats only cheap elementwise algebra, never the traversal sweeps (which
         material/light gradients do not depend on)."""
         R = state.orig.shape[0]
         pix, smp = state.pixel_ids, state.sample_ids
@@ -301,7 +295,7 @@ def make_trace_fn(
 
 def make_shade_fn(static: SceneStatic, cfg: RenderConfig):
     """Build the per-bounce *shading* stage ``(fs, it, state, hit, d_sun,
-    sun_exists, shadow_hit) -> RayState`` — pure VPU algebra, every
+    sun_exists, shadow_hit) -> RayState`` — pure elementwise algebra, every
     ``shading_worker.cpp`` quirk, no traversal.  The seam between this and
     :func:`make_trace_fn` is where the differentiable paths cut: material/
     light/texture gradients flow through shading only, so the trace results
@@ -486,7 +480,7 @@ def make_integrator(
     ``closest(fs, orig, dirn) -> (hit, position, n_interp, tangent, uv,
     mat_id)`` returns *hit attributes* (not triangle indices) so backends are
     free to resolve the winning hit however they like — a local tile/BVH/
-    Pallas sweep, or the scene-sharded psum-min payload reduce over ICI (the
+    kernel walk, or the scene-sharded psum-min payload reduce (the
     reference's cross-worker min-distance exchange, W5).  ``any_hit`` returns
     the occlusion boolean.  Swap backends without touching the shading math.
     """
@@ -534,19 +528,17 @@ def make_integrator(
             # *into*) run outside jax.checkpoint so their results are saved
             # as per-step residuals (~19 f32/ray/step), while the shading
             # algebra inside the checkpoint remats during backward — cheap
-            # VPU work.  Before the split, remat re-ran both sweeps per
+            # elementwise work.  Before the split, remat re-ran both sweeps per
             # step, doubling the dominant cost of the backward pass.
             def body(s, it):
                 # Scalar-predicate cond: XLA skips the whole step once every
                 # lane is dead (e.g. opacity-headroom iterations on scenes
                 # where nothing passes through) — lax.cond is reverse-mode
                 # differentiable, so the scan stays AD-safe.
-                # (Negative result, round 5: permuting lanes live-first
-                # before the sweeps — to recover the production forward's
-                # compaction win — LOSES here: the ~18 per-field permutation
-                # gathers/iter cost more than the grind they save, 346.8 ->
-                # 398.7 ms measured on jack 32k rays.  Parking alone already
-                # makes dead lanes fail every tile gate.)
+                # (Permuting lanes live-first before the sweeps, to recover
+                # the production forward's compaction, costs ~18 per-field
+                # permutation gathers per iteration; not yet measured on the
+                # H100.)
                 def live(ss):
                     tr = trace(fs, it, ss)
                     if not remat_shade:
@@ -581,8 +573,7 @@ def make_integrator(
                 so narrow == full bit-for-bit whenever alive <= width; if
                 alive exceeds the capacity the fallback branch runs the
                 full-width scan instead, so the result is ALWAYS exact).
-                Per-iteration sorting lost (the negative result above) —
-                per-STAGE sorting amortizes the permutation gathers over
+                Per-STAGE sorting amortizes the permutation gathers over
                 all the stage's iterations."""
                 def narrow(ss):
                     perm = jnp.argsort(~ss.alive, stable=True)
@@ -599,14 +590,9 @@ def make_integrator(
                 n_alive = jnp.sum(s.alive.astype(jnp.int32))
                 # cond's vjp allocates residual buffers for BOTH branches,
                 # and the full-width fallback scan alone carries the plain
-                # program's residual volume — unchecked, the staged program
-                # OOM'd at compile (51.1 GB vs 15.75 GB HBM).  Checkpoint
-                # the fallback (rare path: pay recompute only when capacity
-                # is actually exceeded); checkpointing the whole stage
-                # instead measured WORSE (44.7 GB — the remat'd cond-vjp
-                # materializes both branches' residuals as temps).  The
-                # remaining headroom comes from the caller running geometry
-                # backward at a 16k-ray chunk cap.
+                # program's residual volume.  Checkpoint the fallback (rare
+                # path: pay recompute only when capacity is actually
+                # exceeded).
                 fallback = jax.checkpoint(
                     lambda ss: scan_iters(ss, it0, it1), prevent_cse=False
                 )

@@ -3,13 +3,12 @@
 The reference's hot loops are the KD-tree walk (``core/mesh.cpp:300-405``)
 and the per-leaf triangle tests (``geometry/triangle.cpp:120-190``).  Here the
 baseline backend is a *tiled brute-force* sweep: the ray wavefront [R] is
-tested against triangle tiles [T] as an [R, T] elementwise block — a shape
-XLA tiles perfectly onto the VPU with the running min carried in registers.
-For scenes up to ~10^5 triangles this is often *faster* on TPU than a
-divergent tree walk because every lane does useful vector work.
+tested against triangle tiles [T] as an [R, T] elementwise block with the
+running min carried across tiles.  It is O(rays x triangles): the oracle
+the walks are tested against, and the CPU path for small scenes.
 
-The BVH backend (``ptx.accel``) and the Pallas kernels
-(``ptx.kernels.intersect_pallas``) plug in through the same signature:
+The XLA BVH walk (``ptx.accel.traverse``) and the GPU kernel walk
+(``ptx.kernels.traverse_pallas``) plug in through the same signature:
 
     closest(orig [R,3], dirn [R,3]) -> (t [R], tri [R] i32, beta [R], gamma [R], hit [R] bool)
     any_hit(orig [R,3], dirn [R,3]) -> hit [R] bool

@@ -1,4 +1,4 @@
-"""Ray sorting + dead-ray parking: wavefront compaction, the TPU way.
+"""Ray sorting + dead-ray parking: wavefront compaction under SPMD.
 
 The reference keeps its ray wavefront coherent for free — rays sit in
 lock-free queues and any thread pops whatever is next
@@ -6,27 +6,24 @@ lock-free queues and any thread pops whatever is next
 Under SPMD the wavefront is a fixed-shape SoA and both problems reappear:
 
 * after the first bounce, consecutive lanes hold rays scattered all over the
-  scene, so the intersector's block-level tile culling
-  (``intersect_pallas._plan_tiles``) stops working — every ray block's
-  frustum covers everything;
-* terminated lanes still occupy blocks and sweep triangle tiles.
+  scene, so the lanes of one kernel block walk unrelated BVH paths
+  (``ptx.kernels.traverse_pallas``) and the block runs as long as its
+  slowest lane;
+* terminated lanes still occupy blocks.
 
 Both are solved with one permutation per intersection call:
 
 * **sorting** — rays are ordered by a (coarse-morton(origin), direction
   octant) key, so each block covers a small spatial cell with a
-  narrow direction cone and the tile gates cull again (measured ~3x on the
-  59k-tri jack-of-blades scene vs shuffled order);
+  narrow direction cone;
 * **parking** — the integrators move dead lanes to a point outside the scene
   AABB pointing away from it (``park``), so they (a) sort into contiguous
-  all-dead blocks and (b) fail every tile gate, costing nothing.
+  all-dead blocks and (b) miss the root box, costing one node visit.
 
 The wrapper is *exact*: it permutes inputs, runs the wrapped backend, and
 applies the inverse permutation to every output — per-ray results are
 bit-identical because a ray's closest hit does not depend on which block it
-rides in (the tile gate only ever *adds* tiles another lane needs; a tile
-containing some lane's winning hit always passes that lane's own
-``near < best_t`` test).
+rides in.
 
 No reference counterpart (the queues made this a non-problem there); this is
 SURVEY.md §7 "hard part 2" (wavefront compaction under SPMD).
@@ -55,13 +52,15 @@ def resolve_compact(static: SceneStatic, cfg) -> bool:
     return should_compact(static)
 
 
-def should_compact(static: SceneStatic) -> bool:
-    """Parking/sorting only pays once the intersector spans several triangle
-    tiles; for one-tile scenes (cornell) the sweep can't skip anything, so
-    the extra elementwise passes are pure overhead."""
-    from ptx.kernels.intersect_pallas import TT
+# Padded triangle count above which parking/sorting/compaction is on: an
+# untuned starting value, not yet measured on the H100.
+COMPACT_MIN_TRIS = 2048
 
-    return static.n_tris_padded > 4 * TT
+
+def should_compact(static: SceneStatic) -> bool:
+    """Parking/sorting only pays on non-trivial scenes; for a cornell-class
+    box the extra elementwise passes are pure overhead."""
+    return static.n_tris_padded > COMPACT_MIN_TRIS
 
 
 def _expand_bits(x):

@@ -1,8 +1,8 @@
 """Vector math, tonemapping and projection helpers.
 
-TPU-native counterpart of the reference's templated C++ math library
+Array counterpart of the reference's templated C++ math library
 (``path_tracer_lib/path_tracer/math/``, ~3k LoC) and the small helpers in
-``core/utils.hpp``.  On TPU every "vec3" is simply a trailing dimension of a
+``core/utils.hpp``.  Here every "vec3" is simply a trailing dimension of a
 batched ``jnp`` array, so the whole library collapses into a handful of pure
 functions that ``vmap``/XLA fuse into the surrounding kernels.
 

@@ -1,7 +1,7 @@
 """Distributed (multi-chip) rendering via shard_map over the device mesh.
 
-The two parallelism strategies of the reference (SURVEY.md §2.5), done the
-TPU way inside one SPMD program:
+The two parallelism strategies of the reference (SURVEY.md §2.5), done
+inside one SPMD program:
 
 * **Ray parallelism** (``dp`` axis) — the reference's sample/pixel
   parallelism (thread-pool scanline jobs / shared stage queues,
@@ -12,7 +12,7 @@ TPU way inside one SPMD program:
   never wired at runtime, see SURVEY.md §2.1): triangle arrays are sharded;
   every chip intersects the whole (replicated-over-tp) ray wavefront against
   its shard, and the winning hit is resolved with a two-phase
-  ``pmin``-over-ICI reduce — distance first, then lowest chip index as the
+  ``pmin`` reduce — distance first, then lowest chip index as the
   tie-break — followed by a masked ``psum`` that materializes the winner's
   hit payload everywhere.  This is W5 (``intersection_worker.cpp:69-147``)
   implemented for real.
@@ -84,7 +84,7 @@ def ring_closest(base_closest, axis: str = pmesh.AXIS_SCENE):
     attention carries the running softmax state past resident KV shards.
     After ``axis_size`` hops every ray has visited every shard and is back
     home.  Ray memory per chip is 1/tp of the reduce variant; per-hop
-    payload rides the ICI ring.
+    payload rides the device interconnect.
     """
 
     def closest(fs: FlatScene, orig, dirn) -> Hit:
@@ -184,10 +184,10 @@ def make_distributed_sample_fn(
       pmin + masked-psum payload reduce (W5 done with XLA collectives).
     * ``"ring"``   — rays sharded over ``tp`` too; ray blocks ``ppermute``
       around the shard ring carrying their running best hit (the
-      ring-attention schedule; 1/tp the ray memory, ICI-bandwidth bound).
+      ring-attention schedule; 1/tp the ray memory, interconnect-bound).
     """
     from ptx.kernels import sorting
-    from ptx.render import get_backend, resolve_shader
+    from ptx.render import get_backend
 
     if plan.scene_sharded and static.n_bvh_nodes > 0 and not static.shard_local:
         # A globally-built BVH must never run under a scene-sharded plan:
@@ -232,23 +232,12 @@ def make_distributed_sample_fn(
         (lambda v: jax.lax.pmax(v, (pmesh.AXIS_RAYS, pmesh.AXIS_SCENE)))
         if plan.scene_sharded else None
     )
-    # The flagship schedule shards too: same shader resolution as the
-    # single-chip make_integrator_for, so multi-chip keeps the fused Pallas
-    # shading path instead of falling back to the XLA integrator.
     n_pixels = cfg.width * cfg.height
     lanes = n_pixels * k
     ray_ways = plan.dp * (plan.tp if comm == "ring" else 1)
-    rays_per_chip = lanes // max(ray_ways, 1)
-    if resolve_shader(cfg) == "pallas" and rays_per_chip % 128 == 0:
-        from ptx.kernels.shade_pallas import make_pallas_integrator
-
-        integrator = make_pallas_integrator(
-            static, cfg, closest, any_hit, live_sync=live_sync
-        )
-    else:
-        integrator = make_integrator(
-            static, cfg, closest, any_hit, live_sync=live_sync
-        )
+    integrator = make_integrator(
+        static, cfg, closest, any_hit, live_sync=live_sync
+    )
 
     if lanes % ray_ways:
         raise ValueError(
@@ -274,11 +263,10 @@ def make_distributed_sample_fn(
     )
 
     if k == 1:
-        # Frames past the measured per-chip launch optimum auto-chunk, the
+        # Frames past the per-device launch cap auto-chunk, the
         # distributed mirror of ptx.render.resolve_rays_per_batch: each
-        # chunk is one shard_map launch whose per-chip slice stays at or
-        # under MAX_RAYS_PER_LAUNCH (a dp-sharded 1080p frame would
-        # otherwise launch 259k rays per chip, -26% per the sweep).
+        # chunk is one shard_map launch whose per-device slice stays at or
+        # under MAX_RAYS_PER_LAUNCH.
         from ptx.render import MAX_RAYS_PER_LAUNCH
 
         chunk = None
@@ -389,8 +377,8 @@ def render_distributed(
     including checkpoint/resume — the accumulated mean + sample count is
     device-layout-independent, so a checkpoint written here resumes on any
     mesh shape, or single-chip).  Shares the launch strategy with the
-    single-chip path: samples are fused into wide launches up to the measured
-    per-chip ray cap (``ptx.render.MAX_RAYS_PER_LAUNCH``)."""
+    single-chip path: samples are fused into wide launches up to the
+    per-device ray cap (``ptx.render.MAX_RAYS_PER_LAUNCH``)."""
     from ptx.render import progressive_render, resolve_samples_per_launch
 
     if plan is None:

@@ -3,14 +3,14 @@
 Replaces the reference's orchestration layer (L4): the preprocessor Lambda
 that sized the worker fleet from a memory budget and fanned out async invokes
 (``app.py:77-155``, ``preprocessor.py:64-69``) becomes a host-side *planner*
-that inspects scene size vs per-chip HBM and picks a mesh shape:
+that inspects scene size vs per-device memory and picks a mesh shape:
 
 * ``dp`` (ray/tile axis)   — the reference's sample/pixel parallelism: rays
   sharded across chips, scene replicated, no per-ray collective.
 * ``tp`` (scene axis)      — the reference's scene/geometry parallelism:
   triangles sharded, every chip intersects the whole ray wavefront against
-  its shard, hits min-reduced over ICI (the SNS/SQS design of W5, done for
-  real).
+  its shard, hits min-reduced over the device interconnect (the SNS/SQS
+  design of W5, done for real).
 
 No control plane is needed — SPMD replaces async Lambda invokes, and
 ``jax.distributed.initialize`` + the mesh replaces the SNS topic / SQS queue
@@ -56,28 +56,45 @@ def scene_bytes(n_tris: int, n_texels: int = 0) -> int:
     return n_tris * _BYTES_PER_TRI + n_texels * 16
 
 
+def device_memory_bytes(device=None) -> int:
+    """Memory one device lets the program use (``memory_stats()``'s
+    ``bytes_limit``).  A device that reports none is refused: the planner
+    needs a real budget, so pass ``memory_bytes`` to :func:`plan` there."""
+    device = device or jax.devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise ValueError(
+            f"{device} reports no memory limit; pass memory_bytes to plan()"
+        )
+    return int(stats["bytes_limit"])
+
+
 def plan(
     n_tris: int,
     n_devices: Optional[int] = None,
     n_texels: int = 0,
-    hbm_bytes_per_chip: int = 16 * 2**30,
+    memory_bytes: Optional[int] = None,
     scene_budget_fraction: float = 0.25,
     force_tp: Optional[int] = None,
 ) -> Plan:
     """Choose a mesh shape (the ``get_split_scene`` decision of
-    ``preprocessor.py:64-69``, driven by HBM instead of Lambda memory —
-    and, like the reference's partitioner, *texture-aware*: texel bytes
-    dominate textured scenes, ``preprocessor.py:104-111``).
+    ``preprocessor.py:64-69``, driven by device memory instead of Lambda
+    memory — and, like the reference's partitioner, *texture-aware*: texel
+    bytes dominate textured scenes, ``preprocessor.py:104-111``).
 
-    The scene is replicated while it fits in ``scene_budget_fraction`` of a
-    chip's HBM (pure ray parallelism — fastest); otherwise the scene axis
+    ``memory_bytes`` is one device's memory, read from the device
+    (:func:`device_memory_bytes`) when not given.  The scene is replicated
+    while it fits in ``scene_budget_fraction`` of it (pure ray parallelism —
+    fastest); otherwise the scene axis
     grows by powers of two until each shard fits.  Triangles always shard
     with tp; the texture pack stays replicated while it fits alone and flips
     to tp-sharded (``Plan.shard_textures``) only when it doesn't.
     """
     if n_devices is None:
         n_devices = jax.device_count()
-    budget = hbm_bytes_per_chip * scene_budget_fraction
+    if memory_bytes is None:
+        memory_bytes = device_memory_bytes()
+    budget = memory_bytes * scene_budget_fraction
     if force_tp is not None:
         tp = force_tp
     else:

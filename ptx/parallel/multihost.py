@@ -4,18 +4,18 @@ Replaces the reference's AWS control plane (API Gateway -> preprocessor
 Lambda -> async worker invokes, ``app.py:77-155``) with the standard JAX
 multi-controller runway: every host runs the *same* SPMD program;
 ``jax.distributed.initialize`` wires the hosts into one runtime, the global
-mesh spans all chips, and ``shard_map`` lays collectives onto ICI within a
-slice and DCN across slices.  There is no coordinator-worker asymmetry to
-orchestrate — which is the whole point.
+mesh spans all devices, and ``shard_map`` lays collectives onto the
+interconnect.  There is no coordinator-worker asymmetry to orchestrate —
+which is the whole point.
 
-Usage on each host of a pod slice (or across slices):
+Usage on each host:
 
     from ptx.parallel import multihost
-    multihost.initialize()            # env-driven (TPU pods auto-detect)
+    multihost.initialize("host0:1234", num_processes=2, process_id=0)
     # ... build mesh over jax.devices() as usual (ptx.parallel.mesh.plan) ...
 
-On GPU/CPU fleets pass coordinator_address/num_processes/process_id
-explicitly.  Single-process runs are a no-op.
+The coordinator comes from the arguments or ``JAX_COORDINATOR_ADDRESS``.
+Single-process runs are a no-op.
 """
 
 from __future__ import annotations
@@ -33,22 +33,18 @@ def initialize(
 ) -> bool:
     """Initialize the multi-host runtime; returns True when distributed.
 
-    On TPU pods all arguments auto-detect from the environment
-    (``jax.distributed.initialize()`` with no args).  Safe to call in
-    single-process runs (returns False, does nothing).
+    The coordinator is ``coordinator_address`` or the
+    ``JAX_COORDINATOR_ADDRESS`` environment variable (with
+    ``num_processes``/``process_id`` from the arguments or JAX's own
+    environment).  Without either this is a single-process run: returns
+    False and does nothing.
     """
+    import os
+
     import jax
 
-    if num_processes in (None, 1) and coordinator_address is None:
-        import os
-
-        # TPU pod runtimes set these; without them we are single-process.
-        if not any(
-            k in os.environ
-            for k in ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS",
-                      "JAX_COORDINATOR_ADDRESS", "CLOUD_TPU_TASK_ID")
-        ):
-            return False
+    if coordinator_address is None and "JAX_COORDINATOR_ADDRESS" not in os.environ:
+        return False
     try:
         jax.distributed.initialize(
             coordinator_address=coordinator_address,
@@ -58,19 +54,6 @@ def initialize(
     except RuntimeError as e:
         if "already" in str(e):
             return True
-        if "must be called before" in str(e):
-            # The XLA backend was touched first (common in notebooks / this
-            # harness): fall back to single-process rather than crashing.
-            log.warning("multi-host init skipped: %s", e)
-            return False
-        raise
-    except ValueError as e:
-        if coordinator_address is None and "coordinator_address" in str(e):
-            # A pod-ish env var was present (some TPU plugins export
-            # TPU_WORKER_HOSTNAMES even single-host) but auto-detection
-            # found no coordinator: this is a single-process run.
-            log.warning("multi-host auto-detect found no coordinator: %s", e)
-            return False
         raise
     log.info(
         "multi-host: process %d/%d, %d local / %d global devices",

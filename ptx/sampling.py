@@ -1,6 +1,6 @@
 """Counter-based RNG and PBR importance sampling / BRDF terms.
 
-Replaces two reference subsystems with TPU-idiomatic equivalents:
+Replaces two reference subsystems with SPMD-idiomatic equivalents:
 
 * the thread-local ``std::mt19937`` uniform RNG (``core/utils.hpp:8-13``) becomes
   a *counter-based* stateless hash RNG (PCG4D).  Every uniform draw is keyed by

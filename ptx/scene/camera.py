@@ -8,6 +8,7 @@ the camera's world basis.  Vectorized over a whole wavefront of pixel ids.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ptx import math as pmath
@@ -57,6 +58,9 @@ def generate_rays(
         axis=-1,
     )
     d_cam = pmath.normalize(d_cam)
-    d_world = pmath.normalize(d_cam @ fs.cam_basis.T)
+    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU.
+    d_world = pmath.normalize(
+        jnp.matmul(d_cam, fs.cam_basis.T, precision=jax.lax.Precision.HIGHEST)
+    )
     origins = jnp.broadcast_to(fs.cam_origin, d_world.shape)
     return origins, d_world

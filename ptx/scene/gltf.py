@@ -1,6 +1,6 @@
 """Minimal pure-Python glTF 2.0 loader.
 
-TPU-native counterpart of the reference's cgltf-based partial scene loader
+Pure-Python counterpart of the reference's cgltf-based partial scene loader
 (``src/scene/load_gltf.cpp:9-319``).  Parses the JSON + .bin buffers with
 numpy (no native parser needed — loading is a host-side, once-per-scene cost),
 resolves the node hierarchy to *world transforms* immediately (static scenes

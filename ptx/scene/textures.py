@@ -32,13 +32,10 @@ def sample_texture(fs: FlatScene, tex_idx, uv, static=None):
     """Bilinear sample.  ``tex_idx``: [R] i32 pack slots; ``uv``: [R, 2].
     Returns linear RGBA [R, 4].
 
-    PERFORMANCE NOTE: within-texture index arithmetic is float32 with a
-    single final int cast plus one int32 offset add.  Integer mod/div has no
-    hardware path on the TPU VPU — the naive ``jnp.mod(int32)`` wrap
-    expanded to ~1.7M-cycle fusions and made texture addressing the single
-    hottest thing in the whole integrator (~25 ms/step); float fmod is three
-    fast VPU ops and exact for any within-texture index below 2^24
-    (flatten.py guards per-texture size; the pack itself is int32-bounded).
+    Within-texture index arithmetic is float32 with a single final int cast
+    plus one int32 offset add; the float wrap is exact for any
+    within-texture index below 2^24 (flatten.py guards per-texture size; the
+    pack itself is int32-bounded).
 
     TEXTURE SHARDING: when ``static.tex_shard_len > 0`` the texel pack is
     split along the scene (tp) axis (whole textures per shard —
@@ -125,8 +122,7 @@ def material_lookup(fs: FlatScene, mat_id, uv, static=None):
     properties; slots with no texture hit the neutral dummy texels so the
     whole fetch is branch-free.
 
-    Random texel gathers are the TPU bottleneck of textured shading, so the
-    static facts recorded at flatten time (``SceneStatic.tex_slot_used`` /
+    Random texel gathers dominate textured shading, so the static facts recorded at flatten time (``SceneStatic.tex_slot_used`` /
     ``opacity_shares_albedo`` / ``metallic_shares_roughness``) prune the
     fetch plan: a slot whose every material points at the dummy texel is a
     multiply-by-one (skipped exactly), and glTF's packing (alpha in
@@ -140,10 +136,9 @@ def material_lookup(fs: FlatScene, mat_id, uv, static=None):
     tex = fs.mat_tex[mat_id] if any(used) else None  # [R, 7]
 
     # ONE factor gather: all scalar material factors ride the packed
-    # [M, 16] row (TPU row gathers cost per gather *op*, not per byte —
-    # eight separate factor gathers measured 0.31 ms vs 0.20 ms for the row
-    # at 32k rays, ~2% of a whole bounce).  Parameter gradients flow through
-    # fs.mat_packed, which inject_params mirrors the mat_* leaves into.
+    # [M, 16] row instead of eight separate factor gathers.  Parameter
+    # gradients flow through fs.mat_packed, which inject_params mirrors the
+    # mat_* leaves into.
     row = fs.mat_packed[mat_id]  # [R, 16]
 
     alb_rgba = None

@@ -32,7 +32,7 @@ def test_batched_render_matches_per_sample(tb):
 
 
 def test_resolve_samples_per_launch_auto():
-    # Measured launch-size optimum (tools/sweep_k.py): <= 2^15 rays/launch.
+    # The launch-size cap (render.MAX_RAYS_PER_LAUNCH): <= 2^15 rays/launch.
     cfg = RenderConfig(width=256, height=256, samples=16)
     assert R.resolve_samples_per_launch(cfg) == 1  # 64k-pixel frame: k=1
     cfg = RenderConfig(width=64, height=64, samples=64)
@@ -46,7 +46,7 @@ def test_resolve_samples_per_launch_auto():
 
 
 def test_resolve_rays_per_batch_auto_chunks_over_cap_frames():
-    # Frames past the measured 32k-ray launch optimum auto-chunk to the
+    # Frames past the 32k-ray launch cap auto-chunk to the
     # largest 128-aligned divisor that fits (VERDICT r3 task 3).
     assert R.resolve_rays_per_batch(RenderConfig(width=64, height=64)) is None
     assert (

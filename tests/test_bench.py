@@ -3,7 +3,7 @@
 Round 2's jack sub-bench died on a wrong scene path and shipped an
 ``{"error": ...}`` entry to the driver; this walks every bench entry —
 same scene files, same code paths, tiny shapes — so path/API breakage
-fails CI instead of the TPU run (VERDICT r2 task 2).
+fails CI instead of the device run (VERDICT r2 task 2).
 """
 
 import json

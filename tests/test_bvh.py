@@ -12,7 +12,6 @@ from ptx.config import RenderConfig
 from ptx.kernels import intersect as brute
 from ptx.scene.flatten import FlatScene, SceneStatic
 
-CORNELL = "/root/reference/path-tracer-core/scenes/cornell-box/cornell.gltf"
 
 
 def _random_scene(n_tris=333, seed=0, pad=512):
@@ -22,7 +21,7 @@ def _random_scene(n_tris=333, seed=0, pad=512):
     a = centers + rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
     b = centers + rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
     c = centers + rng.normal(0, 0.4, (n_tris, 3)).astype(np.float32)
-    fs, static = R.load_scene(CORNELL, pad_multiple=pad)  # template arrays
+    fs, static = R.load_scene("synthetic:64")  # template arrays
     npad = max(pad, -(-n_tris // pad) * pad)
     z3 = np.zeros((npad, 3), np.float32)
 
@@ -42,6 +41,12 @@ def _random_scene(n_tris=333, seed=0, pad=512):
         uv2=jnp.zeros((npad, 2)),
         mat_id=jnp.zeros(npad, jnp.int32),
     )
+    # The packed per-triangle row (ptx.scene.flatten) for the new soup.
+    attrs = np.zeros((npad, 40), np.float32)
+    for col, f in ((0, "n0"), (3, "n1"), (6, "n2"), (9, "t0"), (12, "t1"),
+                   (15, "t2"), (25, "tri_a"), (28, "tri_e1"), (31, "tri_e2")):
+        attrs[:, col:col + 3] = np.asarray(getattr(fs, f))
+    fs = fs._replace(tri_attrs=jnp.asarray(attrs))
     import dataclasses
 
     static = dataclasses.replace(
@@ -102,7 +107,7 @@ def test_bvh_matches_brute_closest(seed):
 
 
 def test_bvh_render_matches_brute_render():
-    fs, static = R.load_scene(CORNELL)
+    fs, static = R.load_scene("arch:20000")
     cfg_b = RenderConfig(width=32, height=32, samples=2, bounces=3,
                          intersector="brute")
     cfg_v = RenderConfig(width=32, height=32, samples=2, bounces=3,
@@ -133,3 +138,41 @@ def test_native_and_numpy_builders_agree():
             np.asarray(getattr(a, f)), np.asarray(getattr(b, f)), err_msg=f
         )
     np.testing.assert_array_equal(np.asarray(a.tri_a), np.asarray(b.tri_a))
+
+
+@pytest.mark.parametrize("spec", ["synthetic:2048", "arch:20000"])
+def test_refit_reproduces_build_boxes(spec):
+    """Refit on unmoved geometry gives the builder's (padded) boxes."""
+    import jax
+
+    from ptx.accel.bvh import refit_bvh
+
+    fs, static = build_bvh(*R.load_scene(spec, device=False))
+    r = jax.jit(refit_bvh)(R.to_device(fs))
+    for f in ("bvh_min", "bvh_max"):
+        np.testing.assert_allclose(np.asarray(getattr(r, f)),
+                                   np.asarray(getattr(fs, f)), atol=1e-6)
+
+
+def test_refit_keeps_walk_exact_after_geometry_moves():
+    """Geometry params move triangles out of their build-time boxes;
+    inject_params refits the tree, and the XLA walk again renders what the
+    brute oracle renders."""
+    from ptx.diff import inverse
+
+    fs, static = R.ensure_accel(*R.load_scene("arch:20000", device=False),
+                                RenderConfig(intersector="bvh"), device=True)
+    # Lift every other triangle by 0.3 m: far outside its leaf box.
+    lift = jnp.where((jnp.arange(fs.tri_a.shape[0]) % 2 == 0)[:, None],
+                     jnp.array([0.0, 0.3, 0.0]), 0.0)
+    params = {"tri_a": fs.tri_a + lift}
+    moved = inverse.inject_params(fs, params, static)
+    stale = fs._replace(**{k: getattr(moved, k) for k in
+                           ("tri_a", "tri_attrs")})
+    base = dict(width=24, height=16, samples=1, bounces=2)
+    want = R.render(moved, static, RenderConfig(intersector="brute", **base))
+    got = R.render(moved, static, RenderConfig(intersector="bvh", **base))
+    np.testing.assert_allclose(got.color, want.color, rtol=1e-4, atol=1e-5)
+    # Without the refit the walk misses moved triangles.
+    old = R.render(stale, static, RenderConfig(intersector="bvh", **base))
+    assert not np.allclose(old.color, want.color, rtol=1e-4, atol=1e-5)

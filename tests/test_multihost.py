@@ -1,7 +1,7 @@
-"""Multi-host (multi-process) execution — no TPUs required.
+"""Multi-host (multi-process) execution — no accelerator required.
 
 The reference's cross-machine story is the preprocessor fanning out one
-Lambda per scene shard (``app.py:131-140``); the TPU-native equivalent is
+Lambda per scene shard (``app.py:131-140``); the SPMD equivalent is
 the standard JAX multi-controller runway: every host runs the same SPMD
 program, ``jax.distributed.initialize`` wires them into one runtime, and
 the global mesh spans all hosts' devices.  These tests spawn a real
@@ -81,10 +81,8 @@ def test_two_process_pod_matches_single_process(tmp_path, dp, tp):
                                rtol=1e-6, atol=1e-7)
 
     # Sanity only: this 512-path smoke workload is rendezvous-dominated, so
-    # it says nothing about scaling efficiency.  The driver/judge-visible
-    # MULTIHOST_EFF.json artifact is produced by tools/pod_efficiency.py,
-    # which sizes the workload so compute dominates and records a per-step
-    # compute-vs-coordination breakdown (VERDICT r4 weak #2).
+    # it says nothing about scaling efficiency (that needs real cards:
+    # chip_smoke.py --four).
     with open(out + ".json") as f:
         pod_stats = json.load(f)
     assert pod_stats["paths_per_s"] > 0

@@ -1,141 +1,199 @@
-"""Pallas kernel correctness vs the pure-JAX oracle (interpret mode in CI)."""
+"""The Pallas BVH walk (``ptx.kernels.traverse_pallas``) against the brute
+Möller-Trumbore oracle, in interpret mode: there is no GPU here, so the
+compiled kernel is checked by ``chip_smoke.py`` on the card."""
 
+import dataclasses
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from ptx import render as R
+from ptx.accel.bvh import build_bvh
 from ptx.config import RenderConfig
 from ptx.kernels import intersect as brute
-from ptx.kernels import intersect_pallas as kp
+from ptx.kernels import sorting
+from ptx.kernels import traverse_pallas as tk
 from ptx.scene import camera as pcamera
 
-CORNELL = "/root/reference/path-tracer-core/scenes/cornell-box/cornell.gltf"
+SCENES = ["synthetic:2048", "arch:20000"]
 
 
-@pytest.fixture(scope="module")
-def cornell():
-    return R.load_scene(CORNELL)
+@functools.lru_cache(maxsize=None)
+def _scene(spec, leaf_size=8):
+    fs, static = R.load_scene(spec, device=False)
+    return build_bvh(R.to_device(fs), static, leaf_size=leaf_size)
 
 
-def _rays(fs, n=48 * 48, w=48, h=48):
-    pix = jnp.arange(n, dtype=jnp.int32)
-    smp = jnp.zeros_like(pix)
+def _camera_rays(fs, n=1000, w=64, h=48, sample=0):
+    pix = jnp.arange(n, dtype=jnp.int32) * 37 % (w * h)
+    smp = jnp.full_like(pix, sample)
     return pcamera.generate_rays(fs, pix, smp, w, h)
 
 
-def test_pallas_closest_matches_brute(cornell):
-    fs, static = cornell
-    orig, dirn = _rays(fs)
-    hp = kp.closest_pallas(fs, orig, dirn, interpret=True)
-    hr = brute.brute_closest_attrs(fs, orig, dirn)
-    np.testing.assert_array_equal(np.asarray(hp.hit), np.asarray(hr.hit))
-    m = np.asarray(hr.hit)
-    np.testing.assert_allclose(
-        np.asarray(hp.t)[m], np.asarray(hr.t)[m], rtol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(hp.position)[m], np.asarray(hr.position)[m],
-        rtol=1e-4, atol=1e-5,
-    )
-    np.testing.assert_array_equal(np.asarray(hp.mat_id)[m], np.asarray(hr.mat_id)[m])
+def _bounce_rays(fs, orig, dirn, seed=5):
+    """Secondary rays: from the primary hits, random unit directions."""
+    h = brute.brute_closest_attrs(fs, orig, dirn)
+    d = np.random.default_rng(seed).normal(size=orig.shape).astype(np.float32)
+    d = jnp.asarray(d / np.linalg.norm(d, axis=1, keepdims=True))
+    o = jnp.where(h.hit[:, None], h.position + d * 1e-3, orig)
+    return o, d
 
 
-def test_pallas_any_matches_brute(cornell):
-    fs, static = cornell
-    orig, dirn = _rays(fs)
-    ah = kp.any_pallas(fs, orig, dirn, interpret=True)
-    hr = brute.brute_any(fs, orig, dirn)
-    np.testing.assert_array_equal(np.asarray(ah), np.asarray(hr))
+def _assert_closest_matches(fs, static, orig, dirn):
+    t, tri = tk.select(fs, orig, dirn, static.bvh_leaf_size, interpret=True)
+    bt, btri, _, _, bhit = brute.brute_closest(fs, orig, dirn)
+    hit = np.asarray(bhit)
+    np.testing.assert_array_equal(np.asarray(t) < tk.INF, hit)
+    np.testing.assert_array_equal(np.asarray(tri)[hit], np.asarray(btri)[hit])
+    np.testing.assert_allclose(np.asarray(t)[hit], np.asarray(bt)[hit],
+                               rtol=1e-5)
 
 
-def test_pallas_unaligned_ray_count(cornell):
-    # 577 rays: not a multiple of the 256-ray block; padding must be exact.
-    fs, static = cornell
-    orig, dirn = _rays(fs, n=577, w=577, h=1)
-    hp = kp.closest_pallas(fs, orig, dirn, interpret=True)
-    hr = brute.brute_closest_attrs(fs, orig, dirn)
-    np.testing.assert_array_equal(np.asarray(hp.hit), np.asarray(hr.hit))
-    assert hp.t.shape == (577,)
+@pytest.mark.parametrize("spec", SCENES)
+def test_kernel_closest_matches_brute(spec):
+    fs, static = _scene(spec)
+    orig, dirn = _camera_rays(fs)
+    _assert_closest_matches(fs, static, orig, dirn)
+    _assert_closest_matches(fs, static, *_bounce_rays(fs, orig, dirn))
 
 
-def test_pallas_render_matches_brute(cornell):
-    fs, static = cornell
-    cfg_b = RenderConfig(width=32, height=32, samples=2, bounces=2,
-                         intersector="brute")
-    cfg_p = RenderConfig(width=32, height=32, samples=2, bounces=2,
-                         intersector="pallas")
-    a = R.render(fs, static, cfg_b)
-    b = R.render(fs, static, cfg_p)
+@pytest.mark.parametrize("spec", SCENES)
+def test_kernel_any_hit_matches_brute(spec):
+    fs, static = _scene(spec)
+    for orig, dirn in [_camera_rays(fs),
+                       _bounce_rays(fs, *_camera_rays(fs))]:
+        _, any_hit = tk.make_backend(static.bvh_leaf_size, interpret=True)
+        np.testing.assert_array_equal(
+            np.asarray(any_hit(fs, orig, dirn)),
+            np.asarray(brute.brute_any(fs, orig, dirn)))
+
+
+def test_kernel_hit_payload_matches_brute():
+    """The XLA epilogue recomputes t and the barycentrics for the winner,
+    so the Hit payload of every hit matches the brute backend's (a miss's
+    attributes are never read)."""
+    fs, static = _scene("arch:20000")
+    orig, dirn = _camera_rays(fs)
+    closest, _ = tk.make_backend(static.bvh_leaf_size, interpret=True)
+    hk = closest(fs, orig, dirn)
+    hb = brute.brute_closest_attrs(fs, orig, dirn)
+    np.testing.assert_array_equal(np.asarray(hk.hit), np.asarray(hb.hit))
+    m = np.asarray(hb.hit)
+    assert (np.asarray(hk.t)[~m] >= tk.INF).all()
+    for a, b in zip(jax.tree.leaves(hk), jax.tree.leaves(hb)):
+        # Same winner; barycentrics differ by float32 rounding only.
+        np.testing.assert_allclose(np.asarray(a)[m], np.asarray(b)[m],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_ray_count_not_a_block_multiple():
+    fs, static = _scene("synthetic:2048")
+    orig, dirn = _camera_rays(fs, n=tk.BLOCK + 13)
+    _assert_closest_matches(fs, static, orig, dirn)
+    t, tri = tk.select(fs, orig, dirn, static.bvh_leaf_size, interpret=True)
+    assert t.shape == tri.shape == (tk.BLOCK + 13,)
+
+
+def test_kernel_parked_rays_never_hit():
+    fs, static = _scene("arch:20000")
+    orig, dirn = _camera_rays(fs, n=300)
+    keep = jnp.arange(300) % 3 == 0
+    p_orig, p_dirn = sorting.park(orig, dirn, keep, static)
+    closest, any_hit = tk.make_backend(static.bvh_leaf_size, interpret=True)
+    h = closest(fs, p_orig, p_dirn)
+    assert not bool(jnp.any(h.hit & ~keep))
+    assert not bool(jnp.any(any_hit(fs, p_orig, p_dirn) & ~keep))
+    h0 = brute.brute_closest_attrs(fs, orig, dirn)
+    np.testing.assert_array_equal(np.asarray(h.hit)[np.asarray(keep)],
+                                  np.asarray(h0.hit)[np.asarray(keep)])
+
+
+def test_kernel_one_triangle_leaves():
+    fs, static = _scene("synthetic:2048", leaf_size=1)
+    assert int(np.asarray(fs.bvh_count).max()) == 1
+    _assert_closest_matches(fs, static, *_camera_rays(fs))
+
+
+def test_kernel_empty_tree_misses_everything():
+    """A shard holding no triangles carries a 1-node tree with an inverted
+    box (``shard_scene._empty_bvh``): every ray misses, no read runs past
+    the node array."""
+    from ptx.parallel.shard_scene import BVH_FIELDS, _empty_bvh
+
+    fs, static = _scene("synthetic:2048")
+    fs = fs._replace(**dict(zip(BVH_FIELDS, map(jnp.asarray, _empty_bvh()))))
+    orig, dirn = _camera_rays(fs, n=200)
+    t, _ = tk.select(fs, orig, dirn, static.bvh_leaf_size, interpret=True)
+    assert bool(jnp.all(t >= tk.INF))
+
+
+def _interpret_backend(monkeypatch):
+    """Route ``intersector="pallas"`` through the Pallas interpreter."""
+    monkeypatch.setattr(tk, "make_backend",
+                        functools.partial(tk.make_backend, interpret=True))
+
+
+def test_kernel_render_matches_brute(monkeypatch):
+    _interpret_backend(monkeypatch)
+    fs, static = R.load_scene("arch:20000", device=False)
+    base = dict(width=24, height=16, samples=1, bounces=2)
+    a = R.render(fs, static, RenderConfig(intersector="brute", **base))
+    b = R.render(fs, static, RenderConfig(intersector="pallas", **base))
     np.testing.assert_allclose(a.color, b.color, rtol=1e-4, atol=1e-5)
 
 
-def test_exact_gate_pallas_matches_xla_gate():
-    """The VMEM-resident Pallas slab gate must produce bit-identical
-    gates and entry distances to the pure-XLA reference formulation."""
-    import numpy as np
+def test_kernel_vertex_grads_match_brute(monkeypatch):
+    """Vertex gradients flow through the XLA recompute of the kernel's
+    winner (the kernel itself is never differentiated) and match the brute
+    backend's."""
+    from ptx.diff import inverse
 
-    from ptx.kernels import intersect_pallas as ip
+    _interpret_backend(monkeypatch)
+    fs, static = _scene("arch:20000")
+    target = jnp.zeros((16 * 12, 3))
 
-    rng = np.random.default_rng(7)
-    rays = np.zeros((256, 8), np.float32)
-    rays[:, 0:3] = rng.normal(size=(256, 3)) * 2
-    d = rng.normal(size=(256, 3)).astype(np.float32)
-    rays[:, 3:6] = d / np.linalg.norm(d, axis=1, keepdims=True)
-    rays[7, 3:6] = [1.0, 0.0, 0.0]  # axis-aligned: exercises the 1/0 path
-    boxes = np.zeros((64, 8), np.float32)
-    lo = rng.normal(size=(64, 3)) * 3
-    boxes[:, 0:3] = lo
-    boxes[:, 3:6] = lo + rng.random((64, 3)) * 2
-    g1, n1 = ip._exact_gate(jnp.asarray(rays), jnp.asarray(boxes))
-    g2, n2 = ip._exact_gate_pallas(
-        jnp.asarray(rays), jnp.asarray(boxes), interpret=True
-    )
-    assert bool(jnp.all(g1 == g2))
-    assert bool(jnp.all(jnp.where(g1, n1, 0.0) == jnp.where(g2, n2, 0.0)))
+    def grad_for(backend):
+        cfg = RenderConfig(width=16, height=12, samples=1, bounces=2,
+                           intersector=backend)
+        loss_fn = inverse.make_loss_fn(static, cfg, target, ("tri_a",))
+        return np.asarray(
+            jax.grad(loss_fn)({"tri_a": fs.tri_a}, fs, jnp.int32(0))["tri_a"])
+
+    gb, gk = grad_for("brute"), grad_for("pallas")
+    assert np.isfinite(gk).all() and np.abs(gk).max() > 0
+    np.testing.assert_allclose(gk, gb, rtol=1e-3, atol=1e-5)
 
 
-def test_frustum_gate_is_conservative_over_exact():
-    """The >2M-tri plan path: every (block, tile) the exact per-ray gate
-    admits must be admitted by the interval-arithmetic frustum gate, and the
-    frustum entry distance must lower-bound the exact one (safe for
-    front-to-back ordering and the kernel's early exit)."""
-    import numpy as np
-
-    from ptx.kernels import intersect_pallas as ip
-
-    rng = np.random.default_rng(3)
-    rays = np.zeros((512, 8), np.float32)
-    rays[:, 0:3] = rng.normal(size=(512, 3)) * 2
-    d = rng.normal(size=(512, 3)).astype(np.float32)
-    rays[:, 3:6] = d / np.linalg.norm(d, axis=1, keepdims=True)
-    boxes = np.zeros((96, 8), np.float32)
-    lo = rng.normal(size=(96, 3)) * 3
-    boxes[:, 0:3] = lo
-    boxes[:, 3:6] = lo + rng.random((96, 3)) * 2
-
-    ge, ne = ip._exact_gate(jnp.asarray(rays), jnp.asarray(boxes))
-    gf, nf = ip._frustum_gate(jnp.asarray(rays), jnp.asarray(boxes))
-    ge, ne, gf, nf = map(np.asarray, (ge, ne, gf, nf))
-    assert (gf | ~ge).all()  # exact-admitted => frustum-admitted
-    both = ge & gf
-    assert (nf[both] <= ne[both] + 1e-4).all()  # lower-bounds the entry
+@pytest.mark.parametrize("platform,n_tris,expect", [
+    ("gpu", 2048, "pallas"),
+    ("gpu", 1 << 20, "pallas"),
+    ("cpu", 2048, "brute"),
+    ("cpu", 1 << 20, "bvh"),
+])
+def test_backend_choice_by_platform_and_size(platform, n_tris, expect):
+    _, static = _scene("synthetic:2048")
+    static = dataclasses.replace(static, n_tris_padded=n_tris)
+    assert R.resolve_intersector(static, RenderConfig(),
+                                 platform=platform) == expect
+    # An explicit choice is honoured on any platform.
+    assert R.resolve_intersector(static, RenderConfig(intersector="bvh"),
+                                 platform=platform) == "bvh"
 
 
-def test_frustum_plan_sweep_matches_brute(cornell, monkeypatch):
-    """Force the frustum plan on a small scene (threshold lowered) and
-    require the full sweep to still match brute exactly — the >2M-tri
-    configuration in miniature."""
-    from ptx.kernels import intersect_pallas as ip
+def test_backend_choice_refuses_unknown_platform():
+    _, static = _scene("synthetic:2048")
+    with pytest.raises(ValueError, match="no intersection backend"):
+        R.resolve_intersector(static, RenderConfig(), platform="rocm")
 
-    fs, static = cornell
-    orig, dirn = _rays(fs)
-    monkeypatch.setattr(ip, "FRUSTUM_PLAN_TILES", 0)
-    monkeypatch.setattr(ip, "SMALL_TILES", 0)
-    hp = ip.closest_pallas(fs, orig, dirn, interpret=True)
-    hr = brute.brute_closest_attrs(fs, orig, dirn)
-    np.testing.assert_array_equal(np.asarray(hp.hit), np.asarray(hr.hit))
-    m = np.asarray(hr.hit)
-    np.testing.assert_allclose(
-        np.asarray(hp.t)[m], np.asarray(hr.t)[m], rtol=1e-5
-    )
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_brute_on_gpu(gpu):
+    """The kernel as compiled for the card (no interpreter)."""
+    fs, static = _scene("arch:20000")
+    orig, dirn = _camera_rays(fs, n=4096, w=64, h=64)
+    t, tri = jax.jit(lambda fs, o, d: tk.select(fs, o, d, 8))(fs, orig, dirn)
+    bt, btri, _, _, bhit = brute.brute_closest(fs, orig, dirn)
+    np.testing.assert_array_equal(np.asarray(t) < tk.INF, np.asarray(bhit))

@@ -13,6 +13,9 @@ from ptx import render as R
 from ptx.config import RenderConfig
 from ptx.parallel import dist, mesh as pmesh, partition
 
+# One device's memory for the planner (the CPU reports none).
+MEM = 16 * 2**30
+
 CORNELL = "/root/reference/path-tracer-core/scenes/cornell-box/cornell.gltf"
 
 
@@ -32,13 +35,13 @@ def test_eight_devices_available():
 
 
 def test_plan_shapes():
-    p = pmesh.plan(n_tris=1024, n_devices=8)
+    p = pmesh.plan(n_tris=1024, n_devices=8, memory_bytes=MEM)
     assert p.dp == 8 and p.tp == 1 and not p.scene_sharded
     # Huge scene forces scene sharding.
-    p = pmesh.plan(n_tris=500_000_000, n_devices=8)
+    p = pmesh.plan(n_tris=500_000_000, n_devices=8, memory_bytes=MEM)
     assert p.tp > 1 and p.dp * p.tp == 8
     # force_tp respected and kept rectangular.
-    p = pmesh.plan(n_tris=1024, n_devices=8, force_tp=4)
+    p = pmesh.plan(n_tris=1024, n_devices=8, memory_bytes=MEM, force_tp=4)
     assert p.tp == 4 and p.dp == 2
 
 
@@ -144,7 +147,7 @@ def test_union_of_shards_renders_identically(cornell):
 @pytest.mark.parametrize("backend", ["brute", "bvh", "pallas"])
 @pytest.mark.parametrize("tp,comm", [(2, "reduce"), (4, "reduce"), (2, "ring")])
 def test_every_backend_matches_single_device_under_scene_sharding(
-    backend, tp, comm
+    backend, tp, comm, monkeypatch
 ):
     """The round-1 wrong-image bug: a globally-built BVH replicated over
     scene-sharded triangles made ``bvh`` + tp>1 silently render garbage
@@ -153,10 +156,18 @@ def test_every_backend_matches_single_device_under_scene_sharding(
     preparation builds *per-shard* BVHs with shard-local leaf ranges
     (``ptx.parallel.shard_scene``).  Ref: the per-ray min reduce these
     shardings implement is ``intersection_worker.cpp:69-147``."""
+    if backend == "pallas":
+        # No GPU here: the kernel walk runs in the Pallas interpreter.
+        import functools
+
+        from ptx.kernels import traverse_pallas as tk
+
+        monkeypatch.setattr(tk, "make_backend",
+                            functools.partial(tk.make_backend, interpret=True))
     fs, static = R.load_scene("synthetic:3000")
     cfg = _cfg(width=16, height=16, samples=1, bounces=2,
                intersector=backend, sort_rays="off")
-    if backend == "bvh":
+    if backend in ("bvh", "pallas"):
         fs_s, static_s = R.ensure_accel(fs, static, cfg)
     else:
         fs_s, static_s = fs, static

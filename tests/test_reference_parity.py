@@ -39,7 +39,7 @@ GOLD = os.path.join(os.path.dirname(__file__), "golden")
 
 def _render_mean_srgb(bounces, samples, quirks):
     cfg = RenderConfig(width=32, height=32, samples=samples, bounces=bounces,
-                       intersector="brute", shader="xla", quirks=quirks)
+                       intersector="brute", quirks=quirks)
     fs, static = R.load_scene(CORNELL, quirks=quirks)
     res = R.render(fs, static, cfg)
     return np.asarray(res.image, dtype=np.float32) / 255.0

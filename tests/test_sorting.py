@@ -11,12 +11,15 @@ from ptx.kernels import intersect as brute
 from ptx.kernels import sorting
 from ptx.scene import camera as pcamera
 
-CORNELL = "/root/reference/path-tracer-core/scenes/cornell-box/cornell.gltf"
 
 
 @pytest.fixture(scope="module")
 def cornell():
-    return R.load_scene(CORNELL)
+    """A small in-repo scene with its BVH (the walk backends need one)."""
+    from ptx.accel.bvh import build_bvh
+
+    fs, static = R.load_scene("synthetic:2048", device=False)
+    return build_bvh(R.to_device(fs), static)
 
 
 def _rays(fs, n=32 * 32, w=32, h=32, shuffle=True):
@@ -56,11 +59,11 @@ def test_sorted_backend_bit_exact(cornell):
 
 
 def test_sorted_pallas_bit_exact(cornell):
-    from ptx.kernels import intersect_pallas as kp
+    from ptx.kernels import traverse_pallas as tk
 
     fs, static = cornell
     orig, dirn = _rays(fs)
-    closest, any_hit = kp.make_backend(static, interpret=True)
+    closest, any_hit = tk.make_backend(static.bvh_leaf_size, interpret=True)
     s_closest, s_any = sorting.make_sorting_backend(closest, any_hit, static)
     h0 = closest(fs, orig, dirn)
     h1 = s_closest(fs, orig, dirn)
@@ -92,7 +95,7 @@ def test_render_matches_with_sorting_on_and_off(cornell):
     sort_rays on vs off (parking + sorting are exact)."""
     fs, static = cornell
     base = dict(width=16, height=16, samples=2, bounces=3,
-                intersector="brute", shader="xla")
+                intersector="brute")
     img_off = R.render(fs, static, RenderConfig(sort_rays="off", **base))
     img_on = R.render(fs, static, RenderConfig(sort_rays="on", **base))
     np.testing.assert_array_equal(

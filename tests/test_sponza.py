@@ -17,6 +17,9 @@ from ptx.config import RenderConfig
 from ptx.parallel import mesh as pmesh, partition
 from ptx.scene.standin import SPONZA_DIR, sponza_standin
 
+# One device's memory for the planner (the CPU reports none).
+MEM = 16 * 2**30
+
 SPONZA_GLTF = SPONZA_DIR + "/scene.gltf"
 N_PRIMS = 24
 N_TRIS = 262267
@@ -68,12 +71,12 @@ def test_partitioner_equal_count_on_real_sponza():
 
 def test_planner_on_real_sponza_texel_count():
     # 1.09 GB of texels + 262k tris fit the 4 GB scene budget: replicate.
-    p = pmesh.plan(N_TRIS, n_devices=8, n_texels=N_TEXELS)
+    p = pmesh.plan(N_TRIS, n_devices=8, memory_bytes=MEM, n_texels=N_TEXELS)
     assert p.tp == 1 and not p.shard_textures
     # A 4 GB chip (1 GB scene budget) cannot replicate 1.09 GB of texels:
     # the scene axis must grow and the texture pack must shard.
     p = pmesh.plan(N_TRIS, n_devices=8, n_texels=N_TEXELS,
-                   hbm_bytes_per_chip=4 * 2**30)
+                   memory_bytes=4 * 2**30)
     assert p.tp > 1 and p.shard_textures
 
 
