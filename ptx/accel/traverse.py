@@ -23,11 +23,14 @@ from ptx import geometry
 from ptx.scene.flatten import FlatScene, SceneStatic
 
 
-def _make_traverse(leaf_size: int, max_steps: int, any_hit: bool):
+def _make_traverse(leaf_size: int, any_hit: bool):
     def traverse_one(fs: FlatScene, orig, dirn):
         """Single-ray traversal; vmapped by the backend. Returns
         (t, tri, beta, gamma, hit)."""
         inv_d = 1.0 / dirn
+        # Links only point forward in the depth-first layout: a ray visits
+        # each node at most once, so the node count bounds the walk.
+        max_steps = fs.bvh_min.shape[0]
 
         def cond(carry):
             node, best_t, *_ , steps = carry
@@ -100,11 +103,13 @@ def _make_traverse(leaf_size: int, max_steps: int, any_hit: bool):
     return traverse_one
 
 
-def node_visits(fs: FlatScene, orig, dirn, max_steps: int = 4096):
+def node_visits(fs: FlatScene, orig, dirn):
     """Per-ray count of BVH nodes visited — the debug oracle standing in for
     the reference's KD-tree depth visualization (``mesh.cpp:314-331``,
     ``renderer.hpp:33``): reads traversal cost directly instead of coloring
     nodes by pointer hash."""
+
+    max_steps = fs.bvh_min.shape[0]
 
     def one(o, d):
         inv_d = 1.0 / d
@@ -132,12 +137,12 @@ def node_visits(fs: FlatScene, orig, dirn, max_steps: int = 4096):
     return jax.vmap(one)(orig, dirn)
 
 
-def make_backend(leaf_size: int = 8, max_steps: int = 4096):
+def make_backend(leaf_size: int = 8):
     """(closest, any_hit) pair over the attached flattened BVH."""
     from ptx.kernels.intersect import attrs_from_indices
 
-    closest_one = _make_traverse(leaf_size, max_steps, any_hit=False)
-    any_one = _make_traverse(leaf_size, max_steps, any_hit=True)
+    closest_one = _make_traverse(leaf_size, any_hit=False)
+    any_one = _make_traverse(leaf_size, any_hit=True)
 
     def closest(fs: FlatScene, orig, dirn):
         t, tri, beta, gamma, hit = jax.vmap(

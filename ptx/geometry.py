@@ -111,10 +111,8 @@ def transform_ray(orig, dirn, basis, origin):
     re-normalize the direction — the reference's ``ray::transform``
     (``geometry/ray.cpp:10-15``) with the always-normalized-direction invariant
     of the ray constructor (``ray.cpp:6-8``)."""
-    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU.
-    hi = jax.lax.Precision.HIGHEST
-    new_orig = jnp.matmul(orig, basis.T, precision=hi) + origin
-    new_dir = pmath.normalize(jnp.matmul(dirn, basis.T, precision=hi))
+    new_orig = pmath.apply_basis(orig, basis) + origin
+    new_dir = pmath.normalize(pmath.apply_basis(dirn, basis))
     return new_orig, new_dir
 
 

@@ -58,7 +58,7 @@ def pack_nodes(fs):
 
 
 def _kernel(rays_ref, nodes_ref, a_ref, e1_ref, e2_ref, t_ref, tri_ref, *,
-            leaf_size: int, any_hit: bool, max_steps: int):
+            leaf_size: int, any_hit: bool):
     bc = jax.lax.bitcast_convert_type
     ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
     dx, dy, dz = rays_ref[3, :], rays_ref[4, :], rays_ref[5, :]
@@ -142,7 +142,10 @@ def _kernel(rays_ref, nodes_ref, a_ref, e1_ref, e2_ref, t_ref, tri_ref, *,
 
     def cond(carry):
         node, _, _, steps = carry
-        return (jnp.max(node) >= 0) & (steps < max_steps)
+        # Links only point forward in the depth-first layout, so a lane
+        # visits each node at most once: n_nodes steps retire every lane of
+        # a well-formed tree, and bound the loop for any other.
+        return (jnp.max(node) >= 0) & (steps < n_nodes)
 
     node0 = jnp.zeros(ox.shape, jnp.int32)
     _, best_t, best_tri, _ = jax.lax.while_loop(
@@ -163,7 +166,7 @@ def _pack_rays(orig, dirn):
 
 
 def select(fs, orig, dirn, leaf_size: int, any_hit: bool = False,
-           interpret: bool = False, max_steps: int = 1 << 16):
+           interpret: bool = False):
     """Run the walk: ``(t [R], tri [R] i32)`` with ``t = INF`` on a miss
     (for ``any_hit``, ``t < INF`` marks an occluded ray)."""
     sg = jax.lax.stop_gradient
@@ -172,7 +175,7 @@ def select(fs, orig, dirn, leaf_size: int, any_hit: bool = False,
     r_pad = rays.shape[1]
     flat = lambda x: sg(x).reshape(-1)
     kernel = functools.partial(
-        _kernel, leaf_size=leaf_size, any_hit=any_hit, max_steps=max_steps)
+        _kernel, leaf_size=leaf_size, any_hit=any_hit)
     lane = pl.BlockSpec((BLOCK,), lambda i: (i,))
     t, tri = pl.pallas_call(
         kernel,

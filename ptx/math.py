@@ -42,6 +42,15 @@ def cross(a, b):
     )
 
 
+def apply_basis(v, basis):
+    """``v @ basis.T`` for ``[..., 3]`` vectors and a 3x3 ``basis``, written
+    as explicit float32 multiply-adds: the same instructions for every
+    element whatever the batch shape, where a matrix product would go to a
+    GEMM routine chosen per shape (and possibly in TF32)."""
+    return (v[..., 0:1] * basis[:, 0] + v[..., 1:2] * basis[:, 1]
+            + v[..., 2:3] * basis[:, 2])
+
+
 def length(a):
     return jnp.sqrt(jnp.sum(a * a, axis=-1))
 

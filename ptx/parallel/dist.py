@@ -161,6 +161,23 @@ def sharded_any_hit(base_any, axis: str = pmesh.AXIS_SCENE):
     return any_hit
 
 
+def launch_chunk(n_pixels: int, ray_ways: int) -> Optional[int]:
+    """Pixels per shard_map launch of a one-sample pass, or ``None`` for
+    whole-frame launches.  Frames past the per-device launch cap auto-chunk,
+    the distributed mirror of ``ptx.render.resolve_rays_per_batch``: each
+    chunk's per-device slice stays at or under MAX_RAYS_PER_LAUNCH."""
+    from ptx.render import MAX_RAYS_PER_LAUNCH
+
+    ways = max(ray_ways, 1)
+    if n_pixels // ways <= MAX_RAYS_PER_LAUNCH:
+        return None
+    align = 128 * ways
+    for m in range(MAX_RAYS_PER_LAUNCH * ways // align, 0, -1):
+        if n_pixels % (align * m) == 0:
+            return align * m
+    return None
+
+
 def make_distributed_sample_fn(
     static: SceneStatic,
     cfg: RenderConfig,
@@ -263,21 +280,7 @@ def make_distributed_sample_fn(
     )
 
     if k == 1:
-        # Frames past the per-device launch cap auto-chunk, the
-        # distributed mirror of ptx.render.resolve_rays_per_batch: each
-        # chunk is one shard_map launch whose per-device slice stays at or
-        # under MAX_RAYS_PER_LAUNCH.
-        from ptx.render import MAX_RAYS_PER_LAUNCH
-
-        chunk = None
-        if n_pixels // max(ray_ways, 1) > MAX_RAYS_PER_LAUNCH:
-            cap = MAX_RAYS_PER_LAUNCH * max(ray_ways, 1)
-            align = 128 * max(ray_ways, 1)
-            for m in range(cap // align, 0, -1):
-                if n_pixels % (align * m) == 0:
-                    chunk = align * m
-                    break
-
+        chunk = launch_chunk(n_pixels, ray_ways)
         if chunk is None:
 
             @jax.jit

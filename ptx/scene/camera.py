@@ -58,9 +58,6 @@ def generate_rays(
         axis=-1,
     )
     d_cam = pmath.normalize(d_cam)
-    # HIGHEST: a float32 product may otherwise run in TF32 on the GPU.
-    d_world = pmath.normalize(
-        jnp.matmul(d_cam, fs.cam_basis.T, precision=jax.lax.Precision.HIGHEST)
-    )
+    d_world = pmath.normalize(pmath.apply_basis(d_cam, fs.cam_basis))
     origins = jnp.broadcast_to(fs.cam_origin, d_world.shape)
     return origins, d_world

@@ -158,10 +158,26 @@ def test_refit_keeps_walk_exact_after_geometry_moves():
     """Geometry params move triangles out of their build-time boxes;
     inject_params refits the tree, and the XLA walk again renders what the
     brute oracle renders."""
+    _check_refit_render("bvh")
+
+
+def test_refit_keeps_kernel_walk_exact_after_geometry_moves(monkeypatch):
+    """The same with the Pallas walk, in the Pallas interpreter."""
+    import functools
+
+    from ptx.kernels import traverse_pallas as tk
+
+    monkeypatch.setattr(tk, "make_backend",
+                        functools.partial(tk.make_backend, interpret=True))
+    _check_refit_render("pallas")
+
+
+def _check_refit_render(intersector):
     from ptx.diff import inverse
 
     fs, static = R.ensure_accel(*R.load_scene("arch:20000", device=False),
-                                RenderConfig(intersector="bvh"), device=True)
+                                RenderConfig(intersector=intersector),
+                                device=True)
     # Lift every other triangle by 0.3 m: far outside its leaf box.
     lift = jnp.where((jnp.arange(fs.tri_a.shape[0]) % 2 == 0)[:, None],
                      jnp.array([0.0, 0.3, 0.0]), 0.0)
@@ -171,8 +187,10 @@ def test_refit_keeps_walk_exact_after_geometry_moves():
                            ("tri_a", "tri_attrs")})
     base = dict(width=24, height=16, samples=1, bounces=2)
     want = R.render(moved, static, RenderConfig(intersector="brute", **base))
-    got = R.render(moved, static, RenderConfig(intersector="bvh", **base))
+    got = R.render(moved, static, RenderConfig(intersector=intersector,
+                                               **base))
     np.testing.assert_allclose(got.color, want.color, rtol=1e-4, atol=1e-5)
     # Without the refit the walk misses moved triangles.
-    old = R.render(stale, static, RenderConfig(intersector="bvh", **base))
+    old = R.render(stale, static, RenderConfig(intersector=intersector,
+                                               **base))
     assert not np.allclose(old.color, want.color, rtol=1e-4, atol=1e-5)

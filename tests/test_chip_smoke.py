@@ -30,9 +30,12 @@ def test_phase_resolution_checks_the_platform_choice():
 
 
 def test_phase_kernels_rehearsal():
+    # Primary rays, one bounce, and the primary rays after lifting
+    # triangles out of their boxes (checked on the refit tree).
     res = chip_smoke.phase_kernels(SCENE, 32, 24, interpret=True)
-    assert [r["rays"] for r in res] == [768, 768]
-    assert all(r["hit_mask_mismatch"] == 0 for r in res)
+    assert [r["rays"] for r in res] == [768, 768, 768]
+    assert all(r["hit_mask_mismatch"] == r["payload_hit_mismatch"] == 0
+               for r in res)
 
 
 def test_phase_render_rehearsal(tmp_path):

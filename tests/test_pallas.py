@@ -130,6 +130,32 @@ def test_kernel_empty_tree_misses_everything():
     assert bool(jnp.all(t >= tk.INF))
 
 
+@pytest.mark.parametrize("from_top", [False, True])
+def test_kernel_walk_that_visits_every_node(from_top):
+    """A stack of unit triangles along z, one per leaf: a ray down the
+    stack crosses every box, and from one end the depth-first order meets
+    the triangles far to near, so the closest hit sits in the last leaf the
+    walk reaches.  The loop's bound (the node count) must let it get there;
+    a ray inside every box but outside every triangle must miss."""
+    fs, static = R.load_scene("synthetic:64", device=False)
+    n = static.n_tris
+    z = np.arange(fs.tri_a.shape[0], dtype=np.float32)
+    valid = (z < n)[:, None]  # padding slots stay degenerate
+    fs = fs._replace(tri_a=np.stack([0 * z, 0 * z, z], 1) * valid,
+                     tri_e1=np.float32([1, 0, 0]) * valid,
+                     tri_e2=np.float32([0, 1, 0]) * valid)
+    fs, static = build_bvh(fs, static, leaf_size=1)
+    assert static.n_bvh_nodes == 2 * n - 1
+    fs = R.to_device(fs)
+    z0, dz = (n + 1.0, -1.0) if from_top else (-1.0, 1.0)
+    orig = jnp.array([[0.2, 0.2, z0], [0.9, 0.9, z0]], jnp.float32)
+    dirn = jnp.array([[0.0, 0.0, dz]] * 2, jnp.float32)
+    t, tri = tk.select(fs, orig, dirn, 1, interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(t), np.float32([2.0 if from_top else 1.0, tk.INF]))
+    _assert_closest_matches(fs, static, orig, dirn)
+
+
 def _interpret_backend(monkeypatch):
     """Route ``intersector="pallas"`` through the Pallas interpreter."""
     monkeypatch.setattr(tk, "make_backend",
